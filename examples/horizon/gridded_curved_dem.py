@@ -1,5 +1,5 @@
 # Description: Compute gridded topographic parameters for a curved-Earth
-#              lon/lat DEM — the TPU-native port of the reference workflow
+#              lon/lat DEM — the port of the reference workflow
 #              examples/horizon/gridded_curved_DEM.py (SRTM, European Alps).
 #
 # Pass --dem <SRTM GeoTIFF> for real data; default is synthetic terrain.

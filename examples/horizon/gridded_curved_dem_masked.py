@@ -1,5 +1,5 @@
 # Description: Compute topographic parameters for a coastal curved-Earth
-#              domain with ocean masking — TPU-native port of the reference
+#              domain with ocean masking — port of the reference
 #              examples/horizon/gridded_curved_DEM_masked.py (South
 #              Georgia).  Cells far from the coastline are masked out
 #              (work reduction; reference horizon_comp.cpp:749) and receive

@@ -1,6 +1,6 @@
 # Description: Compute gridded topographic parameters (slope angle and
 #              aspect, horizon and sky view factor) from a planar DEM —
-#              the TPU-native port of the reference workflow
+#              the port of the reference workflow
 #              examples/horizon/gridded_planar_DEM.py (swisstopo DHM25).
 #
 # With network access, pass --dem <DHM25 .asc file> to run on real data;

@@ -1,6 +1,6 @@
 # Description: Terrain horizon and sky view factor for a very high
 #              resolution (2 m) planar DEM with a multi-resolution far
-#              field — TPU-native port of the reference workflow
+#              field — port of the reference workflow
 #              examples/horizon/gridded_planar_DEM_2m.py (swissALTI3D).
 #
 #              The reference decimates the outer domain into a simplified
@@ -43,12 +43,6 @@ def main():
                     help="inner cells per side at 2 m")
     ap.add_argument("--ratio-log2", type=int, default=4,
                     help="log2 of far-field coarsening (2 m -> 32 m)")
-    ap.add_argument("--engine", choices=("auto", "pallas", "sweep"),
-                    default="auto",
-                    help="auto: fused Pallas kernel on TPU, XLA otherwise")
-    ap.add_argument("--validate", action="store_true",
-                    help="also run the XLA multires sweep and report the "
-                         "max deviation (error-budget check)")
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
 
@@ -109,32 +103,14 @@ def main():
     kw = dict(ratio_log2=args.ratio_log2, coarse_offset=coarse_offset,
               dx=dx, dy=-dx, offset=(off, off), inner_shape=inner,
               dist_search=args.dist_search * 1000.0, hori_acc=0.25)
-    azim_arr = (2 * np.pi / args.azim_num) * np.arange(args.azim_num)
-
-    from horayzon_tpu.horizon import _on_tpu
-    use_pallas = (args.engine == "pallas"
-                  or (args.engine == "auto" and _on_tpu()))
-    if use_pallas and args.inner % 128 == 0:
-        tile = (128, 512 if args.inner % 512 == 0 else 256)
-        print(f"engine: fused Pallas multires kernel, tile {tile}")
-        hori = multires.horizon_sweep_multires_pallas(
-            z_fine, z_coarse, azim_num=args.azim_num, tile=tile, **kw)
-    else:
-        print("engine: XLA multires sweep")
-        hori = multires.horizon_sweep_multires(z_fine, z_coarse,
-                                               azim=azim_arr, **kw)
+    azim = (2 * np.pi / args.azim_num) * np.arange(args.azim_num)
+    hori = multires.horizon_sweep_multires(z_fine, z_coarse, azim=azim,
+                                           **kw)
     import jax.numpy as jnp
-    if args.validate and use_pallas:
-        hori_x = multires.horizon_sweep_multires(z_fine, z_coarse,
-                                                 azim=azim_arr, **kw)
-        dev = float(jnp.max(jnp.abs(hori - hori_x)))
-        print(f"pallas vs XLA multires max dev: {np.rad2deg(dev):.4f} deg "
-              f"(budget: hori_acc = 0.25 deg)")
     print("horizon mean [deg]: %.2f, max [deg]: %.2f"
           % (float(jnp.rad2deg(jnp.mean(hori))),
              float(jnp.rad2deg(jnp.max(hori)))))
-    # SVF on-device, save summary only (device->host transfers are slow)
-    azim = (2 * np.pi / args.azim_num) * np.arange(args.azim_num)
+    # Save the per-azimuth domain mean only (the full field is large)
     np.savez_compressed(
         os.path.join(args.out, "hori_2m_summary.npz"),
         hori_mean_per_azim=np.asarray(jnp.mean(hori, axis=(0, 1))),

@@ -1,5 +1,5 @@
 # Description: Compute terrain horizon (and distance to the horizon) for
-#              arbitrary point locations — TPU-native port of the reference
+#              arbitrary point locations — port of the reference
 #              workflow examples/horizon/locations_curved_DEM.py.
 #
 # Copyright (c) 2026

@@ -1,5 +1,5 @@
 # Description: Recover a hidden terrain feature from horizon observations
-#              by gradient descent through the fused ray-tracing kernel —
+#              by gradient descent through the horizon sweep —
 #              the capability the reference cannot express (its Embree
 #              core is not differentiable; SURVEY.md section 7 step 8
 #              calls differentiability "the genuinely new capability").
@@ -8,13 +8,12 @@
 #              Per-cell, per-azimuth horizon angles observed on the true
 #              terrain are the measurements; Adam on the elevation field
 #              minimises the squared horizon mismatch, with gradients
-#              flowing through the winner-replay backward kernel
-#              (ops/pallas_sweep.py).  A small Laplacian regulariser
-#              keeps the solution smooth where horizons carry no
-#              information.
+#              from jax.grad through the shifted-slice sweep
+#              (ops/sweep.py).  A small Laplacian regulariser keeps the
+#              solution smooth where horizons carry no information.
 #
-# Runs on CPU (interpret mode, small domain) or TPU; --plot saves the
-# true / initial / recovered elevation maps and the loss curve.
+# Runs on any JAX backend; --plot saves the true / initial / recovered
+# elevation maps and the loss curve.
 #
 # Copyright (c) 2026
 # MIT License
@@ -48,7 +47,7 @@ def terrains(n, dx, seed=0):
     return ((base + ridge).astype(np.float32), base.astype(np.float32))
 
 
-def main():
+def build_parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=192,
                     help="outer DEM cells per side")
@@ -63,57 +62,78 @@ def main():
                     help="Laplacian regulariser weight")
     ap.add_argument("--out", default="/tmp/horayzon_tpu_out")
     ap.add_argument("--plot", action="store_true")
-    args = ap.parse_args()
+    return ap
 
-    import jax
+
+def build_problem(args):
+    """Observations on the true terrain and the fit's loss.
+
+    Returns ``(z_true, z_init, loss_fn)``: numpy DEMs and a function of the
+    elevation field returning ``(loss, horizon MSE)``."""
     import jax.numpy as jnp
 
-    from horayzon_tpu.horizon import _on_tpu
-    from horayzon_tpu.ops import pallas_sweep
+    from horayzon_tpu.ops import sweep
 
     n, inner = args.n, args.inner
     halo = (n - inner) // 2
-    z_true_np, z_init_np = terrains(n, args.dx, seed=3)
-    interpret = not _on_tpu()
-    tile = (min(32, inner), min(64, inner))
-    kw = dict(dx=args.dx, dy=-args.dx, offset=(halo, halo),
-              inner_shape=(inner, inner), azim_num=args.azim_num,
-              dist_search=args.dist_search * 1000.0, hori_acc=0.25,
-              tile=tile, interpret=interpret)
+    z_true, z_init = terrains(n, args.dx, seed=3)
+    azim = (2 * np.pi / args.azim_num) * np.arange(args.azim_num)
 
-    z_true = jnp.asarray(z_true_np)
-    hori_obs = pallas_sweep.horizon_sweep_pallas(z_true, **kw)
-    print(f"observations: {inner}x{inner} cells x {args.azim_num} "
-          f"azimuths ({'interpret' if interpret else 'TPU'} mode)")
+    def hori_of(z):
+        hori, _ = sweep.horizon_sweep(
+            z, dx=args.dx, dy=-args.dx, offset=(halo, halo),
+            inner_shape=(inner, inner), azim=azim,
+            dist_search=args.dist_search * 1000.0, hori_acc=0.25)
+        return hori
+
+    hori_obs = hori_of(jnp.asarray(z_true))
 
     def loss_fn(z):
-        hori = pallas_sweep.horizon_sweep_pallas(z, **kw)
-        data = jnp.mean((hori - hori_obs) ** 2)
+        data = jnp.mean((hori_of(z) - hori_obs) ** 2)
         lap = (z[1:-1, 1:-1] * 4 - z[:-2, 1:-1] - z[2:, 1:-1]
                - z[1:-1, :-2] - z[1:-1, 2:]) / args.dx
         return data + args.smooth * jnp.mean(lap ** 2), data
 
-    vg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    return z_true, z_init, loss_fn
 
-    # Adam on the elevation field (plain jnp: no optimiser dependency)
-    z = jnp.asarray(z_init_np)
+
+def fit(loss_fn, z_init, z_true, steps, lr):
+    """Adam on the elevation field (plain jnp: no optimiser dependency).
+
+    Returns the fitted field and the horizon MSE before each step."""
+    import jax
+    import jax.numpy as jnp
+
+    vg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    z = jnp.asarray(z_init)
     m = jnp.zeros_like(z)
     v = jnp.zeros_like(z)
     b1, b2, eps = 0.9, 0.999, 1e-8
     losses = []
-    t0 = time.time()
-    for it in range(args.steps):
+    for it in range(steps):
         (loss, data), g = vg(z)
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
         mh = m / (1 - b1 ** (it + 1))
         vh = v / (1 - b2 ** (it + 1))
-        z = z - args.lr * mh / (jnp.sqrt(vh) + eps)
+        z = z - lr * mh / (jnp.sqrt(vh) + eps)
         losses.append(float(data))
-        if it % 25 == 0 or it == args.steps - 1:
+        if it % 25 == 0 or it == steps - 1:
             err = float(jnp.abs(z - z_true).max())
             print(f"step {it:4d}: horizon MSE {float(data):.3e} rad^2, "
                   f"max |z - z_true| = {err:.1f} m")
+    return z, losses
+
+
+def main():
+    args = build_parser().parse_args()
+    n, inner = args.n, args.inner
+    halo = (n - inner) // 2
+    z_true_np, z_init_np, loss_fn = build_problem(args)
+    print(f"observations: {inner}x{inner} cells x {args.azim_num} "
+          f"azimuths")
+    t0 = time.time()
+    z, losses = fit(loss_fn, z_init_np, z_true_np, args.steps, args.lr)
     print(f"{args.steps} steps in {time.time() - t0:.1f} s")
 
     # The ridge must be materially recovered where horizons constrain

@@ -1,5 +1,5 @@
 # Description: Shadow / shortwave-correction time track for a NASADEM
-#              domain with a glacier (or any raster) mask — TPU-native port
+#              domain with a glacier (or any raster) mask — port
 #              of examples/shadow/gridded_curved_DEM_NASADEM.py (Karakoram).
 #              Masked cells are skipped (reference work-reduction pattern,
 #              horizon_comp.cpp:749).

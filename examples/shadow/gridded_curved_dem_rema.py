@@ -1,11 +1,11 @@
 # Description: Shadow / shortwave-correction time track for an Antarctic
 #              REMA domain in EPSG:3031 (polar stereographic) coordinates —
-#              TPU-native port of examples/shadow/gridded_curved_DEM_REMA.py.
+#              port of examples/shadow/gridded_curved_DEM_REMA.py.
 #
 #              The projected grid is planar in (x, y) but the surface
 #              normals deviate from +z across the domain; the reference
 #              handles this with per-cell ellipsoid normals, and so does
-#              the TPU Terrain engine (general per-cell-vector mode).
+#              the Terrain engine (general per-cell-vector mode).
 #
 # Copyright (c) 2026
 # MIT License

@@ -1,6 +1,6 @@
 # Description: Compute a time track of terrain-shadow masks and shortwave
 #              correction factors for a curved-Earth DEM, with atmospheric
-#              refraction — TPU-native port of the reference workflow
+#              refraction — port of the reference workflow
 #              examples/shadow/gridded_curved_DEM_SRTM.py (South Georgia).
 #
 # The sun track comes from the built-in solar ephemeris

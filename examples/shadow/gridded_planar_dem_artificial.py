@@ -1,7 +1,7 @@
 # Description: Compute the gridded correction factor for downward direct
 #              shortwave radiation from artificial topography (hemispherical
 #              mountain, rotating sun) and check the spatial mean against
-#              the analytic expectation (~1).  TPU-native port of the
+#              the analytic expectation (~1).  Port of the
 #              reference examples/shadow/gridded_planar_DEM_artificial.py.
 #
 # Copyright (c) 2026
@@ -20,21 +20,13 @@ import numpy as np
 import horayzon_tpu as hray
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="/tmp/horayzon_tpu_out")
-    ap.add_argument("--dx", type=float, default=100.0)
-    ap.add_argument("--azim-steps", type=int, default=181)
-    ap.add_argument("--elev", type=float, default=30.0)
-    ap.add_argument("--plot", action="store_true",
-                    help="render reference-style matplotlib figures")
-    args = ap.parse_args()
-    os.makedirs(args.out, exist_ok=True)
+def hemisphere_terrain(dx):
+    """Artificial topography (reference :45-99): hemisphere of radius
+    0.95 * 10 km in a 40 km padded domain, initialised as a Terrain.
 
-    # Artificial topography (reference :45-63): hemisphere of radius
-    # 0.95 * 10 km in a 40 km padded domain
+    Returns ``(terrain, elevation_inner, surf_enl_fac)``."""
     dom_width_h = np.array([10000, 20000, 10000], dtype=np.float32)
-    dx = dy = args.dx
+    dy = dx
     x = np.linspace(-(dom_width_h.sum() - dx / 2),
                     dom_width_h.sum() - dx / 2,
                     int(dom_width_h.sum() / dx) * 2, dtype=np.float32)
@@ -75,11 +67,30 @@ def main():
                        vec_tilt, vec_norm, surf_enl_fac,
                        np.ascontiguousarray(elevation[slice_in]), mask,
                        ang_max=89.99)
+    return terrain, elevation[slice_in], surf_enl_fac
 
-    # Rotating sun (reference :107-112); all time steps in ONE device call
-    azim = np.deg2rad(np.linspace(0.0, 360.0, args.azim_steps))
-    sun_positions = hray.sun_position.sun_position_planar(
-        np.rad2deg(azim), args.elev, dist=1.0e7)
+
+def rotating_sun(azim_steps, elev):
+    """Rotating sun (reference :107-112): (azimuths [rad], positions)."""
+    azim = np.deg2rad(np.linspace(0.0, 360.0, azim_steps))
+    return azim, hray.sun_position.sun_position_planar(
+        np.rad2deg(azim), elev, dist=1.0e7)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="/tmp/horayzon_tpu_out")
+    ap.add_argument("--dx", type=float, default=100.0)
+    ap.add_argument("--azim-steps", type=int, default=181)
+    ap.add_argument("--elev", type=float, default=30.0)
+    ap.add_argument("--plot", action="store_true",
+                    help="render reference-style matplotlib figures")
+    args = ap.parse_args()
+    os.makedirs(args.out, exist_ok=True)
+
+    terrain, elevation_in, surf_enl_fac = hemisphere_terrain(args.dx)
+    # all time steps in ONE device call
+    azim, sun_positions = rotating_sun(args.azim_steps, args.elev)
     sw = terrain.sw_dir_cor_batch(sun_positions)
     means = sw.mean(axis=(1, 2))
     print("spatial-mean sw_dir_cor: min %.3f max %.3f average %.3f "
@@ -89,7 +100,7 @@ def main():
     np.savez_compressed(
         os.path.join(args.out, "sw_dir_cor_artificial.npz"),
         sw_dir_cor=sw, azim=np.rad2deg(azim),
-        elevation=elevation[slice_in], surf_enl_fac=surf_enl_fac)
+        elevation=elevation_in, surf_enl_fac=surf_enl_fac)
     print("saved:", os.path.join(args.out, "sw_dir_cor_artificial.npz"))
 
     if args.plot:

@@ -1,24 +1,26 @@
 # Copyright (c) 2026
 # MIT License
-"""HORAYZON-TPU: TPU-native terrain horizon, sky-view-factor and shadow maps.
+"""HORAYZON-TPU: terrain horizon, sky-view-factor and shadow maps in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 ChristianSteger/HORAYZON (terrain horizon, sky view factor, visible sky
 fraction, topographic openness, slope, shadow maps and shortwave-radiation
-correction factors from high-resolution digital elevation models), re-designed
-for TPU hardware:
+correction factors from high-resolution digital elevation models), compiled
+by XLA for the attached accelerator (an NVIDIA GPU in production):
 
 * Ray casting against an Embree BVH (reference: horizon_comp.cpp:79-292) is
-  replaced by a gather-free *shifted-slice sweep* over an HBM/VMEM-resident
+  replaced by a gather-free *shifted-slice sweep* over a device-resident
   heightfield with a conservative max-mip pyramid for the far field.
 * TBB shared-memory parallelism (reference: horizon_comp.cpp:739-800) is
-  replaced by on-chip vectorisation plus ``shard_map`` over a TPU device mesh.
+  replaced by data-parallel array operations plus ``shard_map`` over a
+  device mesh.
 * The forward computation is differentiable w.r.t. the DEM elevation.
 
 Submodule layout mirrors the reference package (horayzon/__init__.py:1-12) so
-users can migrate by renaming imports; TPU-native functionality lives in
-``ops`` (kernels), ``parallel`` (meshes/sharding), ``models`` (high-level
-pipelines) and ``utils`` (host-side IO helpers).
+users can migrate by renaming imports; the compute core lives in ``ops``
+(sweeps), ``parallel`` (meshes/sharding), ``models`` (high-level pipelines)
+and ``utils`` (host-side IO and timing helpers).  The package name keeps the
+project's historical name.
 """
 
 from horayzon_tpu import auxiliary

@@ -5,7 +5,7 @@
 Equivalent of reference ``horayzon/auxiliary.py`` (get_path_aux_data
 auxiliary.py:12, rearrange_pad_buffer :49, pad_buffer :100).  The buffer
 format (flat interleaved x/y/z float32, padded to a 16-byte multiple) is kept
-for drop-in compatibility even though the TPU kernels consume the decomposed
+for drop-in compatibility even though the sweep kernels consume the decomposed
 heightfield (:mod:`horayzon_tpu.terrain`) — the padding requirement stemmed
 from Embree's SSE loads and is now only a compatibility no-op.
 """

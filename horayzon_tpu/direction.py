@@ -2,7 +2,7 @@
 # MIT License
 """Ellipsoid surface-normal and north direction vectors.
 
-TPU-native equivalent of reference ``horayzon/direction.pyx``
+Equivalent of reference ``horayzon/direction.pyx``
 (surf_norm direction.pyx:15, north_dir :75); vectorised NumPy float64 with
 float32 outputs, matching the reference's precision contract.
 """

@@ -2,7 +2,7 @@
 # MIT License
 """Domain sizing: expand the user domain by the horizon search distance.
 
-TPU-native equivalent of reference ``horayzon/domain.py`` (planar_grid
+Equivalent of reference ``horayzon/domain.py`` (planar_grid
 domain.py:11, curved_grid :45).  The reference uses geographiclib's geodesic
 ``Direct`` solve for the latitude expansion; since the azimuth is always 0 or
 180 degrees there, this reduces to a meridian arc, which is integrated here

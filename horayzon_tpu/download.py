@@ -6,7 +6,7 @@ Equivalent of reference ``horayzon/download.py`` (file download.py:15, files
 :67, get_file :115): single-file download with a progress bar and parallel
 multi-file download with a thread pool.  The interactive SSL-failure prompt
 of the reference (download.py:34-47) is replaced by an ``ssl_verify``
-argument so the function works in non-interactive (batch/TPU-pod) jobs.
+argument so the function works in non-interactive (batch) jobs.
 """
 
 import os

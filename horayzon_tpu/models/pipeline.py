@@ -5,7 +5,7 @@
 Each reference example script rebuilds the same pipeline by hand
 (domain sizing -> DEM load -> vectors -> vertex buffer -> ray trace ->
 post-processing; SURVEY of examples/horizon/*.py).  These classes package
-that flow as reusable objects over the TPU kernels.
+that flow as reusable objects over the sweep kernels.
 """
 
 import numpy as np

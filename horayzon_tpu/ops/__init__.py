@@ -1,6 +1,6 @@
 # Copyright (c) 2026
 # MIT License
-"""TPU compute kernels: shifted-slice sweeps, max-mip pyramids, refraction."""
+"""Compute core: shifted-slice sweeps, max-mip pyramids, refraction."""
 
 from horayzon_tpu.ops import mip
 from horayzon_tpu.ops import sweep

@@ -2,7 +2,7 @@
 # MIT License
 """Horizon sweep for arbitrary point locations.
 
-TPU equivalent of reference ``horizon_locations_comp``
+Equivalent of reference ``horizon_locations_comp``
 (horizon_comp.cpp:828-1094).  The location count is small (the reference
 iterates locations with TBB, :926-931), so this path uses batched gathers
 from the heightfield pyramid — shapes (L, A, M) — rather than the

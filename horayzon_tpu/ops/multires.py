@@ -2,7 +2,7 @@
 # MIT License
 """Multi-resolution terrain: full-resolution inner grid + coarse far field.
 
-TPU-native replacement for the reference's simplified outer TIN
+Replacement for the reference's simplified outer TIN
 (examples/horizon/gridded_planar_DEM_2m.py:130-265, where the outer domain is
 decimated with the external `hmm` tool under a vertical error budget and
 attached to the Embree scene as extra triangles, horizon_comp.cpp:199-218).
@@ -21,8 +21,6 @@ bounded by ``coarse cell size / distance``, which the schedule keeps at
 ``<= rel_err`` by construction.
 """
 
-import collections
-import functools
 import math
 
 import jax
@@ -33,8 +31,7 @@ from horayzon_tpu.ops import mip as _mip
 from horayzon_tpu.ops import sweep as _sweep
 
 
-def combined_pyramid(z_fine, z_coarse, ratio_log2, coarse_offset, schedule,
-                     pad_extra=None):
+def combined_pyramid(z_fine, z_coarse, ratio_log2, coarse_offset, schedule):
     """Assemble padded pyramid levels from a fine and a coarse heightfield.
 
     Parameters
@@ -50,12 +47,6 @@ def combined_pyramid(z_fine, z_coarse, ratio_log2, coarse_offset, schedule,
         Position of fine cell (0, 0) within the coarse grid, in *fine* cells
         (must be multiples of ``2**ratio_log2``; i.e. the grids are aligned).
     schedule : ops.sweep.Schedule
-    pad_extra : None or (lo, hi_rows, hi_cols)
-        ``None`` pads each level for the XLA sweep's dynamic-slice reads
-        (symmetric ``pads[lvl]`` plus the slice-size right margin).  A
-        triple adds explicit extra sentinel margins around the schedule
-        pad on every level — the fused Pallas kernel's aligned-slab
-        margins are ``(4, 56, 776)`` (see pallas_sweep.pallas_forward_fn).
 
     Returns
     -------
@@ -69,24 +60,15 @@ def combined_pyramid(z_fine, z_coarse, ratio_log2, coarse_offset, schedule,
     pads = schedule.pads
     num_levels = len(pads)
     hf, wf = z_fine.shape
-    # jnp throughout: the assembly must stay traced so the replay VJP can
-    # route far-field cotangents back to z_coarse (all slice bounds are
-    # static Python ints)
+    # jnp throughout: the assembly stays traced so gradients reach
+    # z_coarse (all slice bounds are static Python ints)
     z_coarse = jnp.asarray(z_coarse, dtype=jnp.float32)
     hc, wc = z_coarse.shape
-    lo_e, hi_r, hi_c = (0, 0, 0) if pad_extra is None else pad_extra
 
     fine_levels = _mip.build_pyramid(jnp.asarray(z_fine, jnp.float32),
                                      min(ratio_log2, num_levels))
-    if pad_extra is None:
-        pyramid = [_mip.pad_level(fine_levels[lvl], pads[lvl])
-                   for lvl in range(min(ratio_log2, num_levels))]
-    else:
-        pyramid = [jnp.pad(fine_levels[lvl],
-                           ((pads[lvl] + lo_e, pads[lvl] + hi_r),
-                            (pads[lvl] + lo_e, pads[lvl] + hi_c)),
-                           constant_values=_mip.PAD_VALUE)
-                   for lvl in range(min(ratio_log2, num_levels))]
+    pyramid = [_mip.pad_level(fine_levels[lvl], pads[lvl])
+               for lvl in range(min(ratio_log2, num_levels))]
 
     if num_levels <= ratio_log2:
         return tuple(pyramid)
@@ -98,7 +80,7 @@ def combined_pyramid(z_fine, z_coarse, ratio_log2, coarse_offset, schedule,
     # every direction read real far-field terrain; then mip it down.
     nl = num_levels - ratio_log2
     align = 2 ** nl
-    need = max((pads[lvl] + lo_e) * (2 ** (lvl - ratio_log2))
+    need = max(pads[lvl] * (2 ** (lvl - ratio_log2))
                for lvl in range(ratio_log2, num_levels)) + 2
     p0 = ((need + align - 1) // align) * align
 
@@ -127,22 +109,17 @@ def combined_pyramid(z_fine, z_coarse, ratio_log2, coarse_offset, schedule,
         # current left offset (in level-l cells): p0 / 2^k (p0 is a
         # multiple of 2^nl >= 2^k, so this is exact)
         o = p0 >> k
-        pad_l = pads[lvl] + lo_e       # target left pad of this level
+        pad_l = pads[lvl]              # target left pad of this level
         if o >= pad_l:
             a = a[o - pad_l:, :][:, o - pad_l:]
         else:
             a = jnp.pad(a, ((pad_l - o, 0), (pad_l - o, 0)),
                         constant_values=_mip.PAD_VALUE)
-        if pad_extra is None:
-            # right/bottom margin: slices reach (extent>>l) + 2*pad + Sz
-            need_i = (hf >> lvl) + 2 * pads[lvl] + \
-                _sweep._mip_slice_size(hf, lvl) + 4
-            need_j = (wf >> lvl) + 2 * pads[lvl] + \
-                _sweep._mip_slice_size(wf, lvl) + 4
-        else:
-            ext = 2 ** lvl
-            need_i = (hf + ext - 1) // ext + pad_l + pads[lvl] + hi_r
-            need_j = (wf + ext - 1) // ext + pad_l + pads[lvl] + hi_c
+        # right/bottom margin: slices reach (extent>>l) + 2*pad + Sz
+        need_i = (hf >> lvl) + 2 * pads[lvl] + \
+            _sweep._mip_slice_size(hf, lvl) + 4
+        need_j = (wf >> lvl) + 2 * pads[lvl] + \
+            _sweep._mip_slice_size(wf, lvl) + 4
         pad_i = max(0, need_i - a.shape[0])
         pad_j = max(0, need_j - a.shape[1])
         if pad_i or pad_j:
@@ -290,167 +267,6 @@ def _validate_fine_halo(schedule, ratio_log2, step, offset, inner_shape,
     return halo
 
 
-#: Hashable static config of one multires Pallas horizon invocation (the
-#: custom-VJP nondiff argument; see :func:`_mr_hz`).
-_MrCfg = collections.namedtuple("_MrCfg", [
-    "levels_meta", "phases_meta", "pads", "tile", "a_chunk", "azim_num",
-    "offset", "inner_shape", "dx", "dy", "step", "dist", "near_ex",
-    "n_safe", "ray_org_elev", "elev_lims", "rel_err", "max_level",
-    "ratio_log2", "coarse_offset", "tile_map", "interpret"])
-
-
-def _mr_schedule(cfg):
-    return _sweep.build_schedule(cfg.step, cfg.dist, cfg.rel_err,
-                                 max_level=cfg.max_level)
-
-
-def _mr_pyramid(cfg, z_fine, z_coarse):
-    from horayzon_tpu.ops import pallas_sweep as _pallas
-    return combined_pyramid(z_fine, z_coarse, cfg.ratio_log2,
-                            cfg.coarse_offset, _mr_schedule(cfg),
-                            pad_extra=_pallas.LEVEL_PAD_EXTRA)
-
-
-def _mr_fwd_value(cfg, z_fine, z_coarse, emit_argmax=False):
-    from horayzon_tpu.ops import pallas_sweep as _pallas
-    pyramid = _mr_pyramid(cfg, z_fine, z_coarse)
-    tmap = jnp.asarray(np.asarray(cfg.tile_map, np.int32).reshape(-1, 2))
-    out = _pallas._pallas_core(
-        z_fine, None, tmap, jnp.zeros((4,), jnp.int32),
-        levels_meta=cfg.levels_meta, phases_meta=cfg.phases_meta,
-        pads=cfg.pads, tile=cfg.tile, a_chunk=cfg.a_chunk,
-        a_num=cfg.azim_num, n_az_out=cfg.azim_num,
-        offset=cfg.offset, inner_shape=cfg.inner_shape,
-        dx=cfg.dx, dy=cfg.dy, step=cfg.step, dist=cfg.dist,
-        near_ex=cfg.near_ex, n_safe=cfg.n_safe,
-        ray_org_elev=cfg.ray_org_elev, elev_lims=cfg.elev_lims,
-        interpret=cfg.interpret, pyramid=tuple(pyramid),
-        emit_argmax=emit_argmax)
-    if emit_argmax:
-        return out
-    return jnp.moveaxis(out, 0, -1)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
-def _mr_hz(cfg, z_fine, z_coarse):
-    """Differentiable multires fused-kernel horizon: Pallas forward over
-    the combined fine+coarse pyramid, winner-replay Pallas backward.  The
-    replay kernel re-reads no heights; its per-level window cotangents
-    route through the VJP of :func:`combined_pyramid` (max-pools + the
-    coarse base embedding), so gradients reach BOTH the fine grid and the
-    coarse far field — the capability the reference's one-way TIN
-    simplification cannot express (gridded_planar_DEM_2m.py:130-265)."""
-    return _mr_fwd_value(cfg, z_fine, z_coarse)
-
-
-def _mr_fwd(cfg, z_fine, z_coarse):
-    raw, ids, aux = _mr_fwd_value(cfg, z_fine, z_coarse, emit_argmax=True)
-    out = jnp.clip(jnp.arctan(jnp.moveaxis(raw, 0, -1)),
-                   math.radians(cfg.elev_lims[0]),
-                   math.radians(cfg.elev_lims[1]))
-    return out, (z_fine, z_coarse, raw, ids, aux)
-
-
-def _mr_bwd(cfg, residuals, g):
-    from horayzon_tpu.ops import pallas_sweep as _pallas
-    z_fine, z_coarse, raw, ids, aux = residuals
-    graw = jnp.moveaxis(g, -1, 0)
-    th = jnp.arctan(raw)
-    lo = math.radians(cfg.elev_lims[0])
-    hi = math.radians(cfg.elev_lims[1])
-    graw = jnp.where((th >= lo) & (th <= hi), graw, 0.0) \
-        / (1.0 + raw * raw)
-
-    in0, in1 = cfg.inner_shape
-    bt0, bt1 = _pallas._bwd_tile_for(cfg.inner_shape, cfg.tile)
-    lm_b, pm_b = _pallas._build_metas(_mr_schedule(cfg), bt0, bt1,
-                                      cfg.step)
-    tmap_b = tuple(map(tuple, _pallas.tile_schedule(
-        (in0, in1), (bt0, bt1)).tolist()))
-    budget = max(1, (1 << 20) // (bt0 * bt1 * 4))
-    a_chunk_b = min(budget, cfg.azim_num)
-    while cfg.azim_num % a_chunk_b:
-        a_chunk_b -= 1
-
-    def pyr_fn(zf, zc):
-        return tuple(_mr_pyramid(cfg, zf, zc))
-
-    pyramid, vjp_pyr = jax.vjp(pyr_fn, z_fine, z_coarse)
-    level_cots, zcot = _pallas.backward_replay_fn(
-        z_fine, graw, ids, aux, jnp.zeros((4,), jnp.int32),
-        tile_map_static=tmap_b, levels_meta=tuple(lm_b),
-        phases_meta=tuple(pm_b), pads=cfg.pads, tile=(bt0, bt1),
-        a_chunk=a_chunk_b, a_num=cfg.azim_num, a_den=cfg.azim_num,
-        offset=cfg.offset, inner_shape=cfg.inner_shape,
-        dx=cfg.dx, dy=cfg.dy, step=cfg.step, dist=cfg.dist,
-        near_ex=cfg.near_ex, ray_org_elev=cfg.ray_org_elev,
-        interpret=cfg.interpret,
-        level_shapes=tuple(tuple(a.shape) for a in pyramid))
-    dzf, dzc = vjp_pyr(tuple(level_cots))
-    off0, off1 = cfg.offset
-    dzf = dzf.at[off0:off0 + in0, off1:off1 + in1].add(zcot)
-    return dzf, dzc
-
-
-_mr_hz.defvjp(_mr_fwd, _mr_bwd)
-
-
-def horizon_sweep_multires_pallas(z_fine, z_coarse, *, ratio_log2,
-                                  coarse_offset, dx, dy, offset,
-                                  inner_shape, azim_num, dist_search,
-                                  hori_acc=0.25, elev_ang_low_lim=-15.0,
-                                  elev_ang_up_lim=89.98, ray_org_elev=0.01,
-                                  rel_err=None, max_level=10,
-                                  tile=(128, 256), a_chunk=None, mask=None,
-                                  interpret=False):
-    """Gridded horizon with a coarse far field on the fused Pallas engine.
-
-    Same accuracy contract as :func:`horizon_sweep_multires`, same engine
-    as :func:`horayzon_tpu.ops.pallas_sweep.horizon_sweep_pallas` — only
-    the pyramid levels at and above ``ratio_log2`` come from ``z_coarse``,
-    so the full-resolution outer grid never needs to exist (at the
-    reference's 2 m Alps scale it would not fit HBM;
-    examples/horizon/gridded_planar_DEM_2m.py:130-265).
-
-    Differentiable w.r.t. ``z_fine`` AND ``z_coarse`` (winner-replay
-    custom VJP, :func:`_mr_hz`).  Planar.  Returns (in0, in1, azim_num)
-    float32 [radian].
-    """
-    from horayzon_tpu.ops import pallas_sweep as _pallas
-
-    z_fine = jnp.asarray(z_fine, dtype=jnp.float32)
-    plan = _pallas.plan_sweep(
-        z_fine.shape, inner_shape=inner_shape, offset=offset, tile=tile,
-        azim_num=azim_num, dist_search=dist_search, dx=dx, dy=dy,
-        hori_acc=hori_acc, rel_err=rel_err, max_level=max_level,
-        a_chunk=a_chunk)
-    schedule = _sweep.build_schedule(plan["step"], plan["dist"],
-                                     plan["rel_err"],
-                                     max_level=plan["max_level"])
-    _validate_fine_halo(schedule, ratio_log2, plan["step"], offset,
-                        plan["inner_shape"], z_fine.shape)
-
-    tmap = _pallas.tile_schedule(plan["inner_shape"], plan["tile"], mask)
-    in0, in1 = plan["inner_shape"]
-    lo = math.radians(float(elev_ang_low_lim))
-    if tmap.shape[0] == 0:
-        return jnp.full((in0, in1, azim_num), jnp.float32(lo))
-    cfg = _MrCfg(
-        levels_meta=plan["levels_meta"], phases_meta=plan["phases_meta"],
-        pads=plan["pads"], tile=plan["tile"], a_chunk=plan["a_chunk"],
-        azim_num=int(azim_num), offset=plan["offset"],
-        inner_shape=plan["inner_shape"], dx=plan["dx"], dy=plan["dy"],
-        step=plan["step"], dist=plan["dist"], near_ex=plan["near_ex"],
-        n_safe=plan["n_safe"], ray_org_elev=float(ray_org_elev),
-        elev_lims=(float(elev_ang_low_lim), float(elev_ang_up_lim)),
-        rel_err=plan["rel_err"], max_level=plan["max_level"],
-        ratio_log2=int(ratio_log2),
-        coarse_offset=(int(coarse_offset[0]), int(coarse_offset[1])),
-        tile_map=tuple(map(tuple, tmap.tolist())),
-        interpret=bool(interpret))
-    return _mr_hz(cfg, z_fine, jnp.asarray(z_coarse, dtype=jnp.float32))
-
-
 def horizon_sweep_multires(z_fine, z_coarse, *, ratio_log2, coarse_offset,
                            dx, dy, offset, inner_shape, azim, dist_search,
                            hori_acc=0.25, elev_ang_low_lim=-15.0,
@@ -485,7 +301,6 @@ def horizon_sweep_multires(z_fine, z_coarse, *, ratio_log2, coarse_offset,
     azim = np.asarray(azim, dtype=np.float64)
     tables_np = _sweep.horizon_shift_tables(schedule, azim, dx, dy, offset,
                                             u_xy=u_xy)
-    import jax
     tables = jax.tree_util.tree_map(jnp.asarray, tables_np)
     if u_xy is None:
         u_xy = np.stack([np.sin(azim), np.cos(azim)], axis=-1)

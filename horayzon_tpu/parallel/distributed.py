@@ -4,18 +4,18 @@
 
 The reference parallelises within one shared-memory node (TBB
 ``parallel_reduce`` over grid rows, horizon_comp.cpp:739-800) and has no
-cross-node story.  Here the same (tile, azim) mesh extends over hosts: JAX's
-distributed runtime connects the processes, the mesh is laid out so the
-*tile* (grid-row) axis spans hosts — its only cross-shard communication is
-the output gather / gradient psum, which is bandwidth-light and rides DCN —
-while the *azim* axis stays within a host's ICI-connected chips.
+cross-node story.  Here the same (tile, azim) mesh extends over processes:
+JAX's distributed runtime connects them, and the mesh is laid out so
+consecutive *tile* (grid-row) shards live in the same process.  The only
+cross-shard communication is the output gather and the gradient psum.
 
-Two-host recipe (v4/v5 pods or separate slices)::
+Two-process recipe (one process per host; the coordinator address is
+mandatory, nothing detects a cluster automatically)::
 
-    # host 0
+    # process 0
     HZT_COORDINATOR=10.0.0.1:8476 HZT_NUM_PROCESSES=2 HZT_PROCESS_ID=0 \
         python train_or_sweep.py
-    # host 1
+    # process 1
     HZT_COORDINATOR=10.0.0.1:8476 HZT_NUM_PROCESSES=2 HZT_PROCESS_ID=1 \
         python train_or_sweep.py
 
@@ -23,11 +23,7 @@ where the script calls::
 
     from horayzon_tpu import parallel
     mesh = parallel.distributed.init_distributed(n_azim=4)
-    hori = parallel.shard.horizon_sweep_pallas_sharded(mesh, z, ...)
-
-On TPU pods the three env vars are optional — ``jax.distributed.initialize``
-auto-detects the coordinator from the TPU metadata — so ``init_distributed``
-can be called with no configuration at all.
+    hori = parallel.shard.horizon_sweep_sharded(mesh, z, ...)
 """
 
 import os
@@ -49,8 +45,7 @@ def init_distributed(n_tile=None, n_azim=1, *, coordinator_address=None,
         to ``len(jax.devices()) // n_azim``).
     coordinator_address, num_processes, process_id : explicit multi-host
         wiring; default to the ``HZT_COORDINATOR`` / ``HZT_NUM_PROCESSES``
-        / ``HZT_PROCESS_ID`` environment variables, and when none are set
-        on a TPU pod, to JAX's automatic cluster detection.
+        / ``HZT_PROCESS_ID`` environment variables.
     local_device_ids : optional restriction of this process's devices.
 
     Returns
@@ -72,25 +67,11 @@ def init_distributed(n_tile=None, n_azim=1, *, coordinator_address=None,
 
     already = jax.distributed.is_initialized()
     explicit = bool(coordinator_address or num_processes)
-    if not already and (explicit or _on_tpu_pod()):
-        try:
-            jax.distributed.initialize(
-                coordinator_address=coordinator_address,
-                num_processes=num_processes,
-                process_id=process_id,
-                local_device_ids=local_device_ids)
-        except RuntimeError:
-            # The backend was already initialised (e.g. a single-process
-            # session whose environment merely *looks* like a pod).  With
-            # explicit multi-host wiring this is a real error: the caller
-            # must init before any JAX computation.
-            if explicit:
-                raise
+    if not already and explicit:
+        jax.distributed.initialize(
+            coordinator_address=coordinator_address,
+            num_processes=num_processes,
+            process_id=process_id,
+            local_device_ids=local_device_ids)
     return _mesh.make_mesh(n_tile=n_tile, n_azim=n_azim,
                            devices=jax.devices())
-
-
-def _on_tpu_pod():
-    """True when JAX can auto-detect a multi-host TPU environment."""
-    return bool(os.environ.get("TPU_WORKER_HOSTNAMES")
-                or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"))

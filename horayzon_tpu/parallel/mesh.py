@@ -4,8 +4,9 @@
 
 The reference's shared-memory work distribution (TBB ``parallel_reduce`` over
 grid rows, horizon_comp.cpp:739-800) maps here to a 2-D ``jax.sharding.Mesh``
-over (grid-row tiles) x (azimuth shards); within a host the collectives ride
-ICI, across hosts DCN — no separate backend code is needed.
+over (grid-row tiles) x (azimuth shards).  The mesh follows the algorithm
+only: XLA hands the few collectives (output gather, gradient psum) to the
+platform's collective library, so no separate backend code is needed.
 """
 
 import numpy as np

@@ -5,7 +5,7 @@
 The reference passes DEM geometry as a flat interleaved ``vert_grid`` float32
 buffer (built by auxiliary.rearrange_pad_buffer, auxiliary.py:49-95) into
 Embree.  Here the native terrain representation is a regular heightfield
-(H, W) plus scalar grid geometry — the form the TPU sweep kernels consume —
+(H, W) plus scalar grid geometry — the form the sweep kernels consume —
 and this module converts between the two.
 """
 

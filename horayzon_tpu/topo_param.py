@@ -2,15 +2,17 @@
 # MIT License
 """Derived terrain parameters (slope normals, SVF, VSF, openness).
 
-TPU-native equivalent of reference ``horayzon/topo_param.pyx``
+Equivalent of reference ``horayzon/topo_param.pyx``
 (slope_plane_meth topo_param.pyx:17, slope_vector_meth :230, sky_view_factor
 :377, visible_sky_fraction :465, topographic_openness :548).
 
 The reference iterates cell-by-cell in Cython and solves a 3x3 system per cell
 with LAPACK ``sgesv`` (topo_param.pyx:179).  Here everything is batched jnp:
 neighbourhood sums become shifted-slice reductions and the per-cell 3x3 solve
-becomes a closed-form Cramer solve — fully vectorised on the TPU VPU and
-differentiable.
+becomes a closed-form Cramer solve — fully vectorised and differentiable.
+The per-cell 3x3 rotations run at full float32 precision (``_HIGHEST``): on
+GPUs a default-precision float32 contraction may use TF32 tensor cores, which
+keep only about three decimal digits.
 """
 
 import functools
@@ -18,6 +20,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = ["slope_plane_meth", "slope_vector_meth", "sky_view_factor",
            "visible_sky_fraction", "topographic_openness",
@@ -49,7 +53,8 @@ def _slope_plane_core(x, y, z, rot_mat, use_rot, output_rot):
                        _nine_point_stack(z) - cz], axis=-1)  # (9, Hc, Wc, 3)
     if use_rot:
         rot = rot_mat[1:-1, 1:-1]  # (Hc, Wc, 3, 3)
-        coord = jnp.einsum("hwab,khwb->khwa", rot, coord)
+        coord = jnp.einsum("hwab,khwb->khwa", rot, coord,
+                           precision=_HIGHEST)
 
     xs, ys, zs = coord[..., 0], coord[..., 1], coord[..., 2]
     sx = jnp.sum(xs, axis=0)
@@ -85,7 +90,7 @@ def _slope_plane_core(x, y, z, rot_mat, use_rot, output_rot):
     if use_rot and not output_rot:
         # Rotate back with the transposed matrices (topo_param.pyx:210-223)
         rot = rot_mat[1:-1, 1:-1]
-        vec = jnp.einsum("hwba,hwb->hwa", rot, vec)
+        vec = jnp.einsum("hwba,hwb->hwa", rot, vec, precision=_HIGHEST)
 
     out = jnp.full(x.shape + (3,), jnp.nan, dtype=jnp.float32)
     return out.at[1:-1, 1:-1].set(vec)
@@ -138,7 +143,7 @@ def _slope_vector_core(x, y, z, rot_mat, use_rot, output_rot):
     vec = jnp.where(vec[..., 2:3] < 0.0, -vec, vec)
     if use_rot and output_rot:
         rot = rot_mat[1:-1, 1:-1]
-        vec = jnp.einsum("hwab,hwb->hwa", rot, vec)
+        vec = jnp.einsum("hwab,hwb->hwa", rot, vec, precision=_HIGHEST)
     out = jnp.full(x.shape + (3,), jnp.nan, dtype=jnp.float32)
     return out.at[1:-1, 1:-1].set(vec)
 

@@ -2,7 +2,7 @@
 # MIT License
 """Coordinate transformations (host-side, vectorised float64).
 
-TPU-native equivalent of the reference Cython module ``horayzon/transform.pyx``
+Equivalent of the reference Cython module ``horayzon/transform.pyx``
 (reference symbols: lonlat2ecef transform.pyx:15, ecef2enu :108,
 ecef2enu_vector :194, wgs2swiss :266, swiss2wgs :349, TransformerEcef2enu :438,
 rotation_matrix_glob2loc :490).

@@ -53,6 +53,65 @@ def brute_horizon(z, dx, dy, offset, inner_shape, azim, dist_search,
     return hori
 
 
+def brute_horizon_general(z, dx, dy, offset, inner_shape, azim, u_xy,
+                          vec_norm, vec_north, dist_search,
+                          ray_org_elev=0.01, elev_low_deg=-15.0,
+                          elev_up_deg=89.98, step_frac=0.5):
+    """Dense ray-march horizon in each cell's local tangent frame.
+
+    The ray follows the horizontal marching direction ``u_xy[k]`` of
+    azimuth ``k``; the elevation angle of terrain point ``w`` (relative to
+    the lifted observer) is ``atan2(w . norm, w . u_cell)`` with
+    ``u_cell = sin(a) * east + cos(a) * north`` and ``east = north x
+    norm`` (reference horizon_comp.cpp:772-779)."""
+    off0, off1 = offset
+    in0, in1 = inner_shape
+    h, w = z.shape
+    step = min(abs(dx), abs(dy)) * step_frac
+    s = np.arange(step, dist_search + step / 2, step)
+    norm = np.asarray(vec_norm, np.float64)
+    north = np.asarray(vec_north, np.float64)
+    east = np.cross(north, norm)
+    hori = np.empty((in0, in1, len(azim)), dtype=np.float32)
+    for k, a in enumerate(azim):
+        gx, gy = u_xy[k]
+        fi_s = s * gy / dy
+        fj_s = s * gx / dx
+        for i in range(in0):
+            for j in range(in1):
+                n_c = norm[i, j]
+                u_c = np.sin(a) * east[i, j] + np.cos(a) * north[i, j]
+                z0 = z[i + off0, j + off1] + ray_org_elev * n_c[2]
+                fi = i + off0 + fi_s
+                fj = j + off1 + fj_s
+                valid = (fi >= 0) & (fi <= h - 1) & (fj >= 0) & (fj <= w - 1)
+                ang = -np.inf
+                if valid.any():
+                    dh = bilinear(z, fi[valid], fj[valid]) - z0
+                    sv = s[valid]
+                    num = sv * (gx * n_c[0] + gy * n_c[1]) + dh * n_c[2]
+                    den = sv * (gx * u_c[0] + gy * u_c[1]) + dh * u_c[2]
+                    ang = np.max(np.arctan2(num, den))
+                hori[i, j, k] = np.clip(ang, np.deg2rad(elev_low_deg),
+                                        np.deg2rad(elev_up_deg))
+    return hori
+
+
+def tilted_vectors(shape, tilt_deg, tilt_azim_deg=30.0):
+    """Unit normal tilted by ``tilt_deg`` towards ``tilt_azim_deg``
+    (clockwise from North) in every cell, with the north vector
+    orthogonalised against it."""
+    t = np.deg2rad(tilt_deg)
+    b = np.deg2rad(tilt_azim_deg)
+    norm = np.array([np.sin(t) * np.sin(b), np.sin(t) * np.cos(b),
+                     np.cos(t)])
+    north = np.array([0.0, 1.0, 0.0]) - norm[1] * norm
+    north /= np.linalg.norm(north)
+    vn = np.broadcast_to(norm, shape + (3,)).astype(np.float32)
+    vno = np.broadcast_to(north, shape + (3,)).astype(np.float32)
+    return np.ascontiguousarray(vn), np.ascontiguousarray(vno)
+
+
 def brute_shadow(z, dx, dy, offset, inner_shape, sun_position,
                  ray_org_elev=0.05, step_frac=0.5):
     """Dense sun-ray occlusion test for every inner cell (planar).

@@ -149,23 +149,10 @@ def test_horizon_dtype_and_range():
     assert (hori <= np.deg2rad(89.98) + 1e-6).all()
 
 
-def test_pallas_padded_shape():
-    """Engine-auto padding: inner domain padded to tile multiples only when
-    the outer grid has room; otherwise the XLA sweep is used."""
-    from horayzon_tpu.horizon import _pallas_padded_shape
-    # room to pad: 300x300 inner in a 1000x1000 outer at offset (100, 100)
-    shape, tile = _pallas_padded_shape((1000, 1000), (100, 100), (300, 300))
-    assert shape[0] % tile[0] == 0 and shape[1] % tile[1] == 0
-    assert shape[0] >= 300 and shape[1] >= 300
-    # no room: padding would run past the outer grid
-    assert _pallas_padded_shape((310, 310), (5, 5), (300, 300)) is None
-    # small domains pick small aligned tiles
-    shape, tile = _pallas_padded_shape((400, 400), (64, 64), (60, 60))
-    assert tile[0] <= 64 and tile[1] == 128 and shape == (64, 128)
-
-
 def test_horizon_gridded_engine_sweep_matches_auto_on_cpu():
-    """On CPU the auto engine resolves to the XLA sweep; results identical."""
+    """horizon_gridded has one engine on every platform, the XLA sweep: its
+    output equals ops.sweep.horizon_sweep bit for bit, and the removed
+    ``engine`` keyword is rejected."""
     import horayzon_tpu.auxiliary as aux
     rng = np.random.default_rng(3)
     n = 40
@@ -179,13 +166,17 @@ def test_horizon_gridded_engine_sweep_matches_auto_on_cpu():
     vec_norm[..., 2] = 1.0
     vec_north = np.zeros((in0, in1, 3), np.float32)
     vec_north[..., 1] = 1.0
-    h_auto, _ = horizon.horizon_gridded(
+    h_api, azim = horizon.horizon_gridded(
         vert, n, n, vec_norm, vec_north, off, off, dist_search=0.25,
         azim_num=8, verbose=False)
-    h_sweep, _ = horizon.horizon_gridded(
-        vert, n, n, vec_norm, vec_north, off, off, dist_search=0.25,
-        azim_num=8, verbose=False, engine="sweep")
-    np.testing.assert_array_equal(h_auto, h_sweep)
+    h_sweep, _ = sweep.horizon_sweep(
+        z, dx=25.0, dy=-25.0, offset=(off, off), inner_shape=(in0, in1),
+        azim=azim, dist_search=250.0)
+    np.testing.assert_array_equal(h_api, np.asarray(h_sweep))
+    with pytest.raises(TypeError):
+        horizon.horizon_gridded(
+            vert, n, n, vec_norm, vec_north, off, off, dist_search=0.25,
+            azim_num=8, verbose=False, engine="sweep")
 
 
 def test_masked_bbox_crop_matches_full_sweep():
@@ -203,12 +194,12 @@ def test_masked_bbox_crop_matches_full_sweep():
     vn, vnor = _default_vectors(in0, in1)
     full, _ = horizon.horizon_gridded(
         vg, 48, 48, vn, vnor, off, off, dist_search=0.5, azim_num=8,
-        verbose=False, engine="sweep")
+        verbose=False)
     mask = np.zeros((in0, in1), dtype=np.uint8)
     mask[3:9, 5:14] = 1
     got, _ = horizon.horizon_gridded(
         vg, 48, 48, vn, vnor, off, off, dist_search=0.5, azim_num=8,
-        mask=mask, hori_fill=-9.0, verbose=False, engine="sweep")
+        mask=mask, hori_fill=-9.0, verbose=False)
     sel = mask == 1
     d = np.abs(got[sel] - full[sel])
     assert np.rad2deg(d.max()) < 0.25, \
@@ -224,210 +215,5 @@ def test_masked_all_zero_returns_fill():
     mask = np.zeros((8, 8), dtype=np.uint8)
     hori, _ = horizon.horizon_gridded(
         vg, 32, 32, vn, vnor, 12, 12, dist_search=0.3, azim_num=4,
-        mask=mask, hori_fill=0.5, verbose=False, engine="sweep")
+        mask=mask, hori_fill=0.5, verbose=False)
     assert np.allclose(hori, 0.5)
-
-
-def test_tile_cost_autotune_cache(tmp_path, monkeypatch):
-    """The device-keyed tune cache written by tools/ablate_kernel.py
-    --tile-sweep overrides the built-in tables (VERDICT r3 item 6)."""
-    import json
-
-    from horayzon_tpu import horizon as hz
-
-    cache = {hz._device_kind(): {
-        "lane_cost": {"256": 1.0, "512": 0.5, "1024": 0.25},
-        "tile_cost": {"128x1024": 1.0, "64x512": 9.9},
-    }}
-    d = tmp_path / "aux"
-    d.mkdir()
-    (d / "tile_costs.json").write_text(json.dumps(cache))
-    monkeypatch.setenv("HORAYZON_TPU_AUX_DATA", str(d))
-    monkeypatch.setattr(hz, "_TUNE_CACHE", None)
-    try:
-        assert hz._lane_tile_cost() == {256: 1.0, 512: 0.5, 1024: 0.25}
-        assert hz._tile_cost_table() == {(128, 1024): 1.0, (64, 512): 9.9}
-    finally:
-        monkeypatch.setattr(hz, "_TUNE_CACHE", None)
-    # without a cache: built-ins (keyed or fallback) with required entries
-    assert 256 in hz._lane_tile_cost()
-    assert (128, 1024) in hz._tile_cost_table()
-
-
-def test_masked_bands_plan_and_equality(monkeypatch):
-    """Row-band masked decomposition (VERDICT r4 item 4): a diagonal
-    strip mask gets a multi-band plan (per-band column bboxes reclaim
-    anchor-alignment waste the single bbox cannot), and unmasked-cell
-    outputs equal the dense run; cells outside the bands get the fill."""
-    import jax.numpy as jnp
-
-    from horayzon_tpu import horizon as hz
-    from horayzon_tpu.ops import pallas_sweep
-
-    from reference_impl import gaussian_bumps_terrain
-
-    z = gaussian_bumps_terrain(160, 160, seed=11, amp=300.0)
-    in0 = in1 = 96
-    off = 32
-    yy, xx = np.mgrid[0:in0, 0:in1]
-    mask = (np.abs(yy - xx) < 12).astype(np.uint8)
-
-    toy_table = {(8, 64): 1.1, (16, 64): 1.0, (32, 64): 0.95}
-    monkeypatch.setattr(hz, "_tile_cost_table", lambda: toy_table)
-    plan = hz._masked_bands_choice((160, 160), (off, off), (in0, in1),
-                                   mask)
-    assert plan is not None and plan[0] == "bands", plan
-    assert 2 <= len(plan[1]) <= hz._MAX_MASK_BANDS
-
-    orig = pallas_sweep.horizon_sweep_pallas
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pallas_sweep, "horizon_sweep_pallas", patched)
-    kw = dict(dx=25.0, dy=-25.0, offset=(off, off), azim_num=4,
-              dist_search=700.0, hori_acc=0.25)
-    dense = np.asarray(orig(jnp.asarray(z), inner_shape=(in0, in1),
-                            tile=(32, 32), interpret=True, **kw))
-    outs = pallas_sweep.horizon_sweep_pallas_bands(
-        jnp.asarray(z), dx=25.0, dy=-25.0, offset=(off, off),
-        bands=plan[1], azim_num=4, dist_search=700.0, hori_acc=0.25,
-        interpret=True)
-    assembled = np.full((in0, in1, 4), np.nan, np.float32)
-    for (blk, shape, _t, _m), ob in zip(plan[1], outs):
-        v0 = min(shape[0], in0 - blk[0])
-        v1 = min(shape[1], in1 - blk[1])
-        assembled[blk[0]:blk[0] + v0, blk[1]:blk[1] + v1] = \
-            np.asarray(ob)[:v0, :v1]
-    sel = mask == 1
-    assert not np.isnan(assembled[sel]).any()
-    np.testing.assert_array_equal(assembled[sel], dense[sel])
-
-
-def test_tile_cost_fallback_full_menu_and_hint(monkeypatch, capsys):
-    """Unmeasured device kinds get a full conservative tile menu (thin
-    rows included, scaled above the v5e measurements) plus a one-line
-    autotune hint — the masked chooser is never silently collapsed to
-    128-row tiles (VERDICT r4 item 9)."""
-    from horayzon_tpu import horizon as hz
-
-    monkeypatch.setattr(hz, "_device_kind", lambda: "TPU vX test")
-    monkeypatch.setattr(hz, "_tuned_tables", lambda: {})
-    monkeypatch.setattr(hz, "_TUNE_HINT_PRINTED", False)
-    table = hz._tile_cost_table()
-    assert min(t0 for t0, _ in table) <= 16
-    v5e = hz._TILE_COST_TABLES["TPU v5 lite"]
-    for shape, ratio in table.items():
-        if shape in v5e and shape[0] < 128:
-            assert ratio >= 1.15 * v5e[shape], (shape, ratio)
-    out = capsys.readouterr().out
-    assert "tile-sweep" in out
-    # printed once only
-    hz._tile_cost_table()
-    assert "tile-sweep" not in capsys.readouterr().out
-
-
-def test_horizon_gridded_band_plan_assembly(monkeypatch):
-    """horizon_gridded's multi-band masked branch: band outputs paste
-    into the inner frame, unmasked cells equal the dense run, everything
-    else gets hori_fill."""
-    import jax.numpy as jnp
-
-    from horayzon_tpu import horizon as hz
-    from horayzon_tpu.ops import pallas_sweep
-
-    from reference_impl import gaussian_bumps_terrain
-
-    z = gaussian_bumps_terrain(160, 160, seed=11, amp=300.0)
-    in0 = in1 = 96
-    off = 32
-    yy, xx = np.mgrid[0:in0, 0:in1]
-    mask = (np.abs(yy - xx) < 8).astype(np.uint8)
-
-    monkeypatch.setattr(hz, "_tile_cost_table",
-                        lambda: {(8, 64): 1.1, (16, 64): 1.0,
-                                 (32, 64): 0.95})
-    monkeypatch.setattr(hz, "_on_tpu", lambda: True)
-    orig = pallas_sweep.horizon_sweep_pallas
-    orig_bands = pallas_sweep.horizon_sweep_pallas_bands
-    monkeypatch.setattr(
-        pallas_sweep, "horizon_sweep_pallas",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    band_calls = []
-
-    def bands_patched(*a, **k):
-        k["interpret"] = True
-        band_calls.append(len(k["bands"]))
-        return orig_bands(*a, **k)
-
-    monkeypatch.setattr(pallas_sweep, "horizon_sweep_pallas_bands",
-                        bands_patched)
-
-    vg = _vert_grid_planar(z)
-    vn, vnor = _default_vectors(in0, in1)
-    kw = dict(dist_search=0.7, azim_num=4, hori_acc=0.25, verbose=False,
-              hori_fill=-7.0)
-    h_dense, _ = horizon.horizon_gridded(vg, 160, 160, vn, vnor, off, off,
-                                         **kw)
-    h_masked, _ = horizon.horizon_gridded(vg, 160, 160, vn, vnor, off,
-                                          off, mask=mask, **kw)
-    assert band_calls and band_calls[0] >= 2, band_calls
-    sel = mask == 1
-    np.testing.assert_array_equal(h_masked[sel], h_dense[sel])
-    assert (h_masked[~sel] == -7.0).all()
-
-def test_masked_origin_bbox_shorter_than_inner(monkeypatch):
-    """Regression: an unmasked bbox starting at (0, 0) whose tile-padded
-    block is SHORTER than the inner domain must paste into the full inner
-    frame (slicing the short block used to raise a broadcast error at the
-    final mask fill)."""
-    from horayzon_tpu import horizon as hz
-    from horayzon_tpu.ops import pallas_sweep
-
-    z = gaussian_bumps_terrain(160, 160, seed=5, amp=250.0)
-    in0 = in1 = 96
-    off = 32
-    mask = np.zeros((in0, in1), dtype=np.uint8)
-    mask[:28, :] = 1  # bbox rows (0, 28) -> padded block rows < 96
-
-    monkeypatch.setattr(hz, "_tile_cost_table",
-                        lambda: {(8, 64): 1.1, (16, 64): 1.0,
-                                 (32, 64): 0.95})
-    monkeypatch.setattr(hz, "_on_tpu", lambda: True)
-    orig = pallas_sweep.horizon_sweep_pallas
-    monkeypatch.setattr(
-        pallas_sweep, "horizon_sweep_pallas",
-        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-
-    vg = _vert_grid_planar(z)
-    vn, vnor = _default_vectors(in0, in1)
-    kw = dict(dist_search=0.7, azim_num=4, hori_acc=0.25, verbose=False,
-              hori_fill=-7.0)
-    h_dense, _ = horizon.horizon_gridded(vg, 160, 160, vn, vnor, off, off,
-                                         **kw)
-    h_masked, _ = horizon.horizon_gridded(vg, 160, 160, vn, vnor, off,
-                                          off, mask=mask, **kw)
-    assert h_masked.shape == h_dense.shape
-    sel = mask == 1
-    np.testing.assert_array_equal(h_masked[sel], h_dense[sel])
-    assert (h_masked[~sel] == -7.0).all()
-
-
-def test_bands_cache_keyed_on_elev_limits():
-    """Regression: horizon_sweep_pallas_bands memoises its jitted program;
-    the key must include the elevation clip limits (a second call with a
-    different elev_ang_low_lim used to silently reuse the first program)."""
-    from horayzon_tpu.ops import pallas_sweep
-
-    z = np.zeros((128, 192), dtype=np.float32)
-    bands = [((0, 0), (16, 64), (8, 64), None)]
-    kw = dict(dx=25.0, dy=25.0, offset=(32, 32), bands=bands, azim_num=4,
-              dist_search=500.0, hori_acc=0.25, interpret=True)
-    out_lo = pallas_sweep.horizon_sweep_pallas_bands(
-        z, elev_ang_low_lim=-15.0, **kw)[0]
-    out_hi = pallas_sweep.horizon_sweep_pallas_bands(
-        z, elev_ang_low_lim=2.0, **kw)[0]
-    # flat terrain: horizon clips to the low limit -> results must differ
-    assert np.allclose(np.asarray(out_hi), np.deg2rad(2.0), atol=1e-5)
-    assert not np.allclose(np.asarray(out_lo), np.asarray(out_hi))

@@ -229,3 +229,22 @@ def test_terrain_scan_engine_matches_sweep_engine():
         c2 = t2.sw_dir_cor(sun)
         close = np.isclose(c1, c2, atol=0.05).mean()
         assert close > 0.97
+
+
+@pytest.mark.parametrize("engine", ["pallas", "auto"])
+def test_terrain_rejects_removed_engines(engine):
+    """Only the marching sweep and the scan remain; the removed engine
+    names raise instead of silently picking another engine."""
+    z = gaussian_bumps_terrain(48, 48, seed=5, amp=500.0)
+    _, vec_tilt, xx, yy = _planar_setup(z)
+    off, in0, in1 = 8, 32, 32
+    vert_grid = auxiliary.rearrange_pad_buffer(xx.astype(np.float32),
+                                               yy.astype(np.float32), z)
+    vec_norm = np.zeros((in0, in1, 3), dtype=np.float32)
+    vec_norm[..., 2] = 1.0
+    t = shadow.Terrain()
+    with pytest.raises(ValueError, match="engine"):
+        t.initialise(vert_grid, 48, 48, off, off, vec_tilt, vec_norm,
+                     np.ones((in0, in1), np.float32),
+                     np.ascontiguousarray(z[off:off + in0, off:off + in1]),
+                     np.ones((in0, in1), np.uint8), engine=engine)

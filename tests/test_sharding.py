@@ -94,76 +94,6 @@ def test_sharded_gradients_flow(terrain):
     assert np.abs(g).max() > 0.0
 
 
-def test_sharded_pallas_matches_single_device(terrain):
-    """Fused-Pallas engine under shard_map (4x2 tile x azim mesh) vs the
-    single-device Pallas kernel — exact equality (same kernel, same
-    arithmetic, shard offsets only relabel the work)."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    from horayzon_tpu.ops import pallas_sweep
-
-    azim_num = 16
-    kw = dict(dx=25.0, dy=-25.0, offset=(16, 16), inner_shape=(32, 32),
-              dist_search=600.0, hori_acc=0.25)
-    single = np.asarray(pallas_sweep.horizon_sweep_pallas(
-        terrain, azim_num=azim_num, a_chunk=4, tile=(8, 32),
-        interpret=True, **kw))
-    mesh = pmesh.make_mesh(n_tile=4, n_azim=2)
-    out = np.asarray(pshard.horizon_sweep_pallas_sharded(
-        mesh, terrain, azim_num=azim_num, a_chunk=4, tile=(8, 32),
-        interpret=True, **kw))
-    np.testing.assert_array_equal(out, single)
-
-
-def test_sharded_pallas_tilt_ramp(terrain):
-    """Sharded Pallas with the curved-Earth tilt ramp (ramp fields sharded
-    over rows) vs single-device."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    from horayzon_tpu.ops import pallas_sweep
-
-    rng = np.random.default_rng(3)
-    ramp_a = rng.normal(0.0, 1e-4, (32, 32)).astype(np.float32)
-    ramp_b = rng.normal(0.0, 1e-4, (32, 32)).astype(np.float32)
-    kw = dict(dx=25.0, dy=-25.0, offset=(16, 16), inner_shape=(32, 32),
-              dist_search=500.0, azim_num=8, a_chunk=4, tile=(8, 32),
-              tilt_ramp=(ramp_a, ramp_b), interpret=True)
-    single = np.asarray(pallas_sweep.horizon_sweep_pallas(terrain, **kw))
-    mesh = pmesh.make_mesh(n_tile=4, n_azim=2)
-    out = np.asarray(pshard.horizon_sweep_pallas_sharded(
-        mesh, terrain, **kw))
-    np.testing.assert_array_equal(out, single)
-
-
-def test_sharded_pallas_shadow_matches_single_device(terrain):
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    from horayzon_tpu.ops import pallas_sweep
-    from horayzon_tpu.ops import sweep as _sweep
-
-    dx = 25.0
-    off = (16, 16)
-    inner = (32, 32)
-    n = terrain.shape[0]
-    cx = 0.5 * (n - 1) * dx
-    cy = -0.5 * (n - 1) * dx
-    suns = np.array([[cx + 2e5, cy + 1e5, 2e4],
-                     [cx - 1e5, cy - 2e5, 1.5e4]], dtype=np.float32)
-    z_in = terrain[16:48, 16:48]
-    z_org = z_in + 0.05
-    diag = float(np.hypot(n * dx, n * dx))
-    sched = _sweep.build_schedule(dx, diag, _sweep.default_rel_err(0.25))
-    table, _ = pallas_sweep.shadow_sun_table(suns, (cx, cy), dx, -dx)
-    kw = dict(schedule=sched, offset=off, inner_shape=inner, dx=dx, dy=-dx,
-              grid_origin=(0.0, 0.0), t_chunk=2, interpret=True)
-    single = np.asarray(pallas_sweep.shadow_metric_pallas(
-        terrain, z_org, z_in, table, tile=(8, 32), **kw))
-    mesh = pmesh.make_mesh(n_tile=8, n_azim=1)
-    out = np.asarray(pshard.shadow_metric_pallas_sharded(
-        mesh, terrain, z_org, z_in, table, tile=(4, 32), **kw))
-    np.testing.assert_array_equal(out, single)
-
-
 def test_sharded_shadow_matches_single_device(terrain):
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -186,209 +116,42 @@ def test_sharded_shadow_matches_single_device(terrain):
     np.testing.assert_allclose(out, ref, atol=1e-5)
 
 
-def test_sharded_multires_pallas_matches_single_device():
-    """Memory-scalable composition (VERDICT r2 item 3): multires far field
-    + fused Pallas + shard_map, with per-shard fine-level windows instead
-    of a replicated outer heightfield.  Exact equality vs the
-    single-device multires Pallas engine (windows are literal 8-aligned
-    slices of the same padded levels, so every sample and every pooled
-    early-exit bound is bitwise identical)."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    from horayzon_tpu.ops import multires
-
-    from reference_impl import gaussian_bumps_terrain as _terrain
-
-    dx = 25.0
-    dist = 4000.0
-    acc = 2.0
-    halo_full = int(dist / dx) + 16
-    inner = 32
-    n_full = inner + 2 * halo_full
-    full = _terrain(n_full, n_full, seed=9, amp=500.0)
-    azim_num = 8
-
-    r_log2 = 2
-    halo_fine = 96
-    i0 = halo_full - halo_fine
-    assert i0 % (2 ** r_log2) == 0
-    z_fine = full[i0:i0 + inner + 2 * halo_fine,
-                  i0:i0 + inner + 2 * halo_fine]
-
-    def _dmax(z, r):
-        h, w = z.shape
-        return z[:h - h % r, :w - w % r].reshape(h // r, r, w // r, r) \
-            .max(axis=(1, 3))
-
-    z_coarse = _dmax(full, 2 ** r_log2)
-    kw = dict(ratio_log2=r_log2, coarse_offset=(i0, i0), dx=dx, dy=-dx,
-              offset=(halo_fine, halo_fine), inner_shape=(inner, inner),
-              dist_search=dist, hori_acc=acc, azim_num=azim_num,
-              tile=(8, 32), a_chunk=4, interpret=True)
-    single = np.asarray(multires.horizon_sweep_multires_pallas(
-        z_fine, z_coarse, **kw))
-    mesh = pmesh.make_mesh(n_tile=4, n_azim=2)
-    out = np.asarray(pshard.horizon_sweep_multires_pallas_sharded(
-        mesh, z_fine, z_coarse, **kw))
-    np.testing.assert_array_equal(out, single)
-
-
-def test_sharded_pallas_gradients(terrain):
-    """Sharded winner-replay backward (VERDICT r4 item 1): jax.grad of the
-    sharded fused-Pallas horizon equals the single-device replay gradient.
-    Both paths replay the SAME recorded winners through the same backward
-    kernel — the sharded one per shard with global (row, azimuth) offsets,
-    psumming the replicated heightfield's cotangent over the mesh — so
-    agreement is to f32 summation-order tolerance, and a central finite
-    difference pins the single-device gradient as ground truth."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
+@pytest.mark.parametrize("n_tile,n_azim", [(8, 1), (4, 2)])
+def test_sharded_shadow_gradients(terrain, n_tile, n_azim):
+    """jax.grad through the row-sharded shadow metric equals the
+    single-device gradient, w.r.t. both the replicated heightfield (psum
+    over the tile axis) and the sharded ray-origin field."""
+    if len(jax.devices()) < n_tile * n_azim:
+        pytest.skip("needs enough virtual devices")
     import jax.numpy as jnp
-
-    from horayzon_tpu.ops import pallas_sweep
-
-    kw = dict(dx=25.0, dy=-25.0, offset=(16, 16), inner_shape=(8, 32),
-              dist_search=150.0, azim_num=2, a_chunk=1, tile=(2, 32),
-              interpret=True)
-    rng = np.random.default_rng(5)
-    ramp = tuple(rng.normal(0.0, 1e-4, (8, 32)).astype(np.float32)
-                 for _ in range(2))
-
-    def loss_single(z, r):
-        h = pallas_sweep.horizon_sweep_pallas(z, tilt_ramp=r, **kw)
-        return jnp.mean(h ** 2)
-
-    mesh = pmesh.make_mesh(n_tile=4, n_azim=2)
-
-    def loss_sharded(z, r):
-        h = pshard.horizon_sweep_pallas_sharded(mesh, z, tilt_ramp=r, **kw)
-        return jnp.mean(h ** 2)
-
-    z = jnp.asarray(terrain)
-    gz_s, gr_s = jax.grad(loss_single, argnums=(0, 1))(z, ramp)
-    gz_m, gr_m = jax.grad(loss_sharded, argnums=(0, 1))(z, ramp)
-    gmax = float(jnp.abs(gz_s).max())
-    assert gmax > 0.0
-    np.testing.assert_allclose(np.asarray(gz_m), np.asarray(gz_s),
-                               rtol=1e-5, atol=1e-6 * gmax)
-    v = jnp.asarray(rng.normal(size=terrain.shape).astype(np.float32))
-    d_s = float(jnp.vdot(gz_s, v))
-    eps = 0.05
-    fd = (float(loss_single(z + eps * v, ramp))
-          - float(loss_single(z - eps * v, ramp))) / (2 * eps)
-    assert abs(d_s - fd) < 0.05 * (abs(fd) + abs(d_s)) + 1e-9, (d_s, fd)
-    for a, b in zip(gr_m, gr_s):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=1e-9)
-
-
-def test_sharded_multires_pallas_gradients():
-    """Winner-replay VJP of the memory-scalable sharded multires engine:
-    gradients w.r.t. z_fine AND z_coarse equal the single-device multires
-    replay gradients (same winners, same backward kernel per shard; window
-    cotangents overlap-add through the slicing VJP and psum over the
-    mesh)."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    import jax.numpy as jnp
-
-    from horayzon_tpu.ops import multires
-
-    from reference_impl import gaussian_bumps_terrain as _terrain
-
-    dx = 25.0
-    dist = 4000.0
-    acc = 2.0
-    halo_full = int(dist / dx) + 16
-    inner = 32
-    n_full = inner + 2 * halo_full
-    full = _terrain(n_full, n_full, seed=9, amp=500.0)
-    azim_num = 8
-    r_log2 = 2
-    halo_fine = 96
-    i0 = halo_full - halo_fine
-    z_fine = jnp.asarray(full[i0:i0 + inner + 2 * halo_fine,
-                              i0:i0 + inner + 2 * halo_fine])
-
-    def _dmax(z, r):
-        h, w = z.shape
-        return z[:h - h % r, :w - w % r].reshape(h // r, r, w // r, r) \
-            .max(axis=(1, 3))
-
-    z_coarse = jnp.asarray(_dmax(full, 2 ** r_log2))
-    kw = dict(ratio_log2=r_log2, coarse_offset=(i0, i0), dx=dx, dy=-dx,
-              offset=(halo_fine, halo_fine), inner_shape=(inner, inner),
-              dist_search=dist, hori_acc=acc, azim_num=azim_num,
-              tile=(8, 32), a_chunk=4, interpret=True)
-
-    def loss_single(zf, zc):
-        h = multires.horizon_sweep_multires_pallas(zf, zc, **kw)
-        return jnp.mean(h ** 2)
-
-    mesh = pmesh.make_mesh(n_tile=4, n_azim=2)
-
-    def loss_sharded(zf, zc):
-        h = pshard.horizon_sweep_multires_pallas_sharded(
-            mesh, zf, zc, **kw)
-        return jnp.mean(h ** 2)
-
-    gf_s, gc_s = jax.grad(loss_single, argnums=(0, 1))(z_fine, z_coarse)
-    gf_m, gc_m = jax.grad(loss_sharded, argnums=(0, 1))(z_fine, z_coarse)
-    gmax = float(jnp.abs(gf_s).max())
-    assert gmax > 0.0
-    assert float(jnp.abs(gc_s).max()) > 0.0
-    np.testing.assert_allclose(np.asarray(gf_m), np.asarray(gf_s),
-                               rtol=1e-5, atol=1e-6 * gmax)
-    np.testing.assert_allclose(np.asarray(gc_m), np.asarray(gc_s),
-                               rtol=1e-5,
-                               atol=1e-6 * float(jnp.abs(gc_s).max()))
-
-
-def test_sharded_shadow_pallas_gradients(terrain):
-    """Sharded shadow winner-replay VJP: gradients w.r.t. the replicated
-    heightfield AND the sharded ray-origin field equal the single-device
-    shadow replay gradients (sun batch replicated across azim shards, so
-    only the tile axis psums)."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    import jax.numpy as jnp
-
-    from horayzon_tpu.ops import pallas_sweep
-    from horayzon_tpu.ops import sweep as _sweep
 
     dx = 25.0
     off = (16, 16)
     inner = (32, 32)
-    n = terrain.shape[0]
-    cx = 0.5 * (n - 1) * dx
-    cy = -0.5 * (n - 1) * dx
-    suns = np.array([[cx + 2e5, cy + 1e5, 2e4],
-                     [cx - 1e5, cy - 2e5, 1.5e4],
-                     [cx + 5e4, cy - 2e5, 8e3]], dtype=np.float32)
-    diag = float(np.hypot(n * dx, n * dx))
-    sched = _sweep.build_schedule(dx, diag, _sweep.default_rel_err(0.25))
-    table, _ = pallas_sweep.shadow_sun_table(suns, (cx, cy), dx, -dx)
-    kw = dict(schedule=sched, offset=off, inner_shape=inner, dx=dx,
-              dy=-dx, grid_origin=(0.0, 0.0), t_chunk=2, interpret=True)
+    u_cells = np.array([0.3 / -dx, 0.95 / dx], dtype=np.float32)
+    diag = np.hypot(64 * dx, 64 * dx)
+    sched = sweep.build_schedule(dx, diag, sweep.default_rel_err(0.25))
+    m = np.full(inner, 0.12, np.float32)
+    mesh = pmesh.make_mesh(n_tile=n_tile, n_azim=n_azim,
+                           devices=jax.devices()[:n_tile * n_azim])
+
+    def loss(metric_fn, zz, zorg):
+        z_i = jax.lax.dynamic_slice(zz, off, inner)
+        met = metric_fn(zz, zorg, z_i, m, u_cells, sched, off, inner)
+        return jnp.mean(jax.nn.sigmoid(met / 5.0))
+
+    def single(*a):
+        return sweep.shadow_metric(*a)
+
+    def sharded(*a):
+        return pshard.shadow_metric_sharded(mesh, *a)
+
     z = jnp.asarray(terrain)
-
-    def loss_single(zz, zorg):
-        z_i = jax.lax.dynamic_slice(zz, off, inner)
-        met = pallas_sweep.shadow_metric_pallas_diff(
-            zz, zorg, z_i, table, tile=(8, 32), **kw)
-        return jnp.mean(jax.nn.sigmoid(met / 5.0))
-
-    mesh = pmesh.make_mesh(n_tile=4, n_azim=2)
-
-    def loss_sharded(zz, zorg):
-        z_i = jax.lax.dynamic_slice(zz, off, inner)
-        met = pshard.shadow_metric_pallas_sharded(
-            mesh, zz, zorg, z_i, table, tile=(8, 32), **kw)
-        return jnp.mean(jax.nn.sigmoid(met / 5.0))
-
-    zorg0 = jax.lax.dynamic_slice(z, off, inner) + 0.05
-    gz_s, go_s = jax.grad(loss_single, argnums=(0, 1))(z, zorg0)
-    gz_m, go_m = jax.grad(loss_sharded, argnums=(0, 1))(z, zorg0)
+    zorg = jax.lax.dynamic_slice(z, off, inner) + 0.05
+    gz_s, go_s = jax.grad(lambda a, b: loss(single, a, b),
+                          argnums=(0, 1))(z, zorg)
+    gz_m, go_m = jax.grad(lambda a, b: loss(sharded, a, b),
+                          argnums=(0, 1))(z, zorg)
     gmax = float(jnp.abs(gz_s).max())
     assert gmax > 0.0
     np.testing.assert_allclose(np.asarray(gz_m), np.asarray(gz_s),
